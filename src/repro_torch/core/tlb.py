@@ -1,0 +1,238 @@
+"""Sampled TLB estimation with CLT confidence intervals (paper §3.4.2, Alg. 4).
+
+TLB (Eq. 1) = mean over pairs of ||T(x_i) - T(x_j)|| / ||x_i - x_j||.
+
+Exact TLB costs O(m^2 d); DROP instead estimates it from sampled pairs with a
+Gaussian (CLT) confidence interval, doubling the pair count until the interval
+clears the target (online-aggregation style).
+
+Because PCA bases are orthogonal and nested,
+``||T_k x - T_k y||^2 = sum_{j<=k} (v_j · (x-y))^2`` — so ONE product of pair
+differences against the full basis plus a prefix cumsum yields the TLB sample
+at EVERY k simultaneously (kernel K2, ``repro_torch.kernels.pairwise_tlb``).
+The classic per-k evaluation (paper's binary search) reads one column of this
+table; the "prefix" search uses all of it. Centering cancels in pair
+differences, so TLB is mean-free.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+from scipy import stats
+
+from repro_torch.kernels.pairwise_tlb import ops as tlb_ops
+from repro_torch.kernels.pairwise_tlb.ref import pairwise_tlb_ref
+
+
+def sample_pairs(m: int, p: int, rng: np.random.Generator) -> np.ndarray:
+    """Draw p index pairs (i, j), i != j, uniformly (with replacement across
+    pairs — standard for CLT-based online aggregation)."""
+    i = rng.integers(0, m, size=p)
+    j = rng.integers(0, m - 1, size=p)
+    j = np.where(j >= i, j + 1, j)  # shift to skip the diagonal
+    return np.stack([i, j], axis=1).astype(np.int32)
+
+
+def nested_prefix_tlb(
+    x: np.ndarray, expansion: np.ndarray, pairs: np.ndarray
+) -> np.ndarray:
+    """Sampled mean TLB at EVERY prefix length of a nested expansion.
+
+    ``expansion`` is an (m, kmax) representation whose length-k prefix is the
+    k-dim transform (FFT/DWT/PCA share this property), so one cumsum answers
+    every k at once. This is the shared CI machinery behind every nested
+    baseline's min-k search — float64 accumulation, clipped at 1 (the
+    expansions are contractive up to padding/roundoff)."""
+    xi, xj = x[pairs[:, 0]], x[pairs[:, 1]]
+    dx2 = np.maximum(((xi - xj).astype(np.float64) ** 2).sum(-1), 1e-30)
+    diff = (expansion[pairs[:, 0]] - expansion[pairs[:, 1]]).astype(np.float64)
+    cum = np.cumsum(diff**2, axis=1)
+    return np.sqrt(np.minimum(cum / dx2[:, None], 1.0)).mean(axis=0)
+
+
+def nested_min_k(
+    x: np.ndarray, expansion: np.ndarray, target: float, pairs: np.ndarray
+) -> tuple[int, np.ndarray]:
+    """Smallest prefix length achieving the TLB target (falls back to the
+    full expansion width when nothing clears it). Returns (k, tlb-per-k)."""
+    tlb_k = nested_prefix_tlb(x, expansion, pairs)
+    ok = np.nonzero(tlb_k >= target)[0]
+    k = int(ok[0]) + 1 if ok.size else expansion.shape[1]
+    return k, tlb_k
+
+
+def transform_tlb_sampled(
+    x: np.ndarray, t: np.ndarray, pairs: np.ndarray, confidence: float = 0.95
+) -> tuple[float, float, float]:
+    """Sampled TLB CI of one fixed transform ``t`` of ``x`` (non-nested
+    methods evaluate one k at a time through this)."""
+    xi, xj = x[pairs[:, 0]], x[pairs[:, 1]]
+    ti, tj = t[pairs[:, 0]], t[pairs[:, 1]]
+    dx = np.sqrt(np.maximum(((xi - xj) ** 2).sum(-1), 1e-30))
+    dt = np.sqrt(np.maximum(((ti - tj) ** 2).sum(-1), 0.0))
+    return gaussian_ci(np.where(dx > 1e-15, dt / dx, 1.0), confidence)
+
+
+def transform_min_k(
+    x: np.ndarray,
+    transform_fn,
+    target: float,
+    pairs: np.ndarray,
+    kmax: int,
+) -> int:
+    """Binary search for the smallest k whose sampled mean TLB clears the
+    target, for methods whose representations are not nested (PAA segments,
+    JL redraws) but whose quality is monotone-ish in k."""
+    lo, hi = 1, kmax
+    while lo < hi:
+        k = (lo + hi) // 2
+        mean, _, _ = transform_tlb_sampled(x, transform_fn(x, k), pairs)
+        if mean >= target:
+            hi = k
+        else:
+            lo = k + 1
+    return lo
+
+
+# (p, d), (p, d), (d, kmax) -> (p, kmax) per-pair TLB at every prefix k: the
+# plain PyTorch statement of the table, which K2 computes on a CUDA device
+prefix_tlb_table = pairwise_tlb_ref
+
+
+def gaussian_ci(vals: np.ndarray, confidence: float) -> tuple[float, float, float]:
+    """CLT mean ± z * s/sqrt(n). Returns (mean, lo, hi)."""
+    n = vals.shape[0]
+    mean = float(vals.mean())
+    z = float(stats.norm.ppf(0.5 + confidence / 2.0))
+    half = z * float(vals.std(ddof=1)) / np.sqrt(n) if n > 1 else 1.0
+    return mean, mean - half, mean + half
+
+
+@dataclass
+class TLBEstimate:
+    mean: float
+    lo: float
+    hi: float
+    pairs_used: int
+
+
+class TLBEstimator:
+    """Incrementally samples pairs from the FULL dataset and maintains the
+    per-pair all-prefix TLB table for one candidate basis V.
+
+    Pair draws double lazily; previously computed rows are reused (this is what
+    lets DROP promote worst-fit pairs into the next iteration's sample).
+
+    ``x`` and ``v`` stay on their device: each new pair batch is gathered
+    there and sent through K2 (plain version on the CPU), and only the
+    (pairs, kmax) table rows come back to the host."""
+
+    def __init__(
+        self,
+        x: torch.Tensor,
+        v: torch.Tensor,
+        rng: np.random.Generator,
+        confidence: float = 0.95,
+    ) -> None:
+        self.x = x
+        self.v = v.contiguous()
+        self.rng = rng
+        self.confidence = confidence
+        self.m = x.shape[0]
+        self.num_pairs_total = self.m * (self.m - 1) // 2
+        self._pairs = np.zeros((0, 2), dtype=np.int32)
+        self._table = np.zeros((0, int(v.shape[1])), dtype=np.float32)
+
+    def _extend(self, p: int) -> None:
+        if p <= self._pairs.shape[0]:
+            return
+        new = sample_pairs(self.m, p - self._pairs.shape[0], self.rng)
+        idx = torch.from_numpy(new.astype(np.int64)).to(self.x.device)
+        xi = self.x.index_select(0, idx[:, 0])
+        xj = self.x.index_select(0, idx[:, 1])
+        rows = tlb_ops.pairwise_tlb(xi, xj, self.v).cpu().numpy()
+        self._pairs = np.concatenate([self._pairs, new], axis=0)
+        self._table = np.concatenate([self._table, rows], axis=0)
+
+    def table(self, p: int) -> np.ndarray:
+        """(p, kmax) TLB table over the first p sampled pairs."""
+        self._extend(p)
+        return self._table[:p]
+
+    def estimate_at_k(
+        self, k: int, target: float, initial_pairs: int = 100, max_pairs: int = 6400
+    ) -> TLBEstimate:
+        """EVALUATE-TLB (Alg. 4 lines 11-18): double pairs until the CI clears
+        the target (or the budget is exhausted). Uses only column k."""
+        p = min(initial_pairs, max_pairs, self.num_pairs_total)
+        while True:
+            if k <= 0:
+                return TLBEstimate(0.0, 0.0, 0.0, 0)
+            vals = self.table(p)[:, k - 1]
+            mean, lo, hi = gaussian_ci(vals, self.confidence)
+            if lo > target or hi < target or p >= min(max_pairs, self.num_pairs_total):
+                return TLBEstimate(mean, lo, hi, p)
+            p = min(p * 2, max_pairs, self.num_pairs_total)
+
+    def estimate_all_k(
+        self, target: float, initial_pairs: int = 100, max_pairs: int = 6400
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+        """All-prefix estimation (the "prefix" search): double pairs until the
+        smallest-satisfying-k decision is CI-stable. Returns (mean_k, lo_k,
+        hi_k, pairs_used), each of shape (kmax,)."""
+        p = min(initial_pairs, max_pairs, self.num_pairs_total)
+        z = float(stats.norm.ppf(0.5 + self.confidence / 2.0))
+        while True:
+            tab = self.table(p)
+            mean = tab.mean(axis=0)
+            half = z * tab.std(axis=0, ddof=1) / np.sqrt(p)
+            lo, hi = mean - half, mean + half
+            # decision stable when some k's lower bound clears the target, or
+            # even the full basis' upper bound cannot reach it
+            if (lo >= target).any() or hi[-1] < target or p >= min(
+                max_pairs, self.num_pairs_total
+            ):
+                return mean, lo, hi, p
+            p = min(p * 2, max_pairs, self.num_pairs_total)
+
+    def point_scores(self, k: int) -> tuple[np.ndarray, np.ndarray]:
+        """Per-point worst-fit scores from all evaluated pairs at dimension k:
+        score(point) = min TLB over pairs touching it (lower = worse fit).
+        Used for importance sampling / work reuse (§3.3.2)."""
+        if self._pairs.shape[0] == 0 or k <= 0:
+            return np.zeros(0, dtype=np.int32), np.zeros(0, dtype=np.float32)
+        vals = self._table[:, k - 1]
+        pts = self._pairs.ravel()
+        scores = np.repeat(vals, 2)
+        order = np.argsort(scores)  # ascending: worst first
+        pts, scores = pts[order], scores[order]
+        uniq, first = np.unique(pts, return_index=True)
+        return uniq.astype(np.int32), scores[first].astype(np.float32)
+
+
+def exact_tlb(x: np.ndarray, transform: np.ndarray, block: int = 512) -> float:
+    """Exact O(m^2 d) TLB (Eq. 1) — test oracle only. ``transform`` is (d, k)."""
+    x = np.asarray(x, dtype=np.float64)
+    t = x @ np.asarray(transform, dtype=np.float64)
+    m = x.shape[0]
+    total, count = 0.0, 0
+    for a in range(0, m, block):
+        xa, ta = x[a : a + block], t[a : a + block]
+        for b in range(a, m, block):
+            xb, tb = x[b : b + block], t[b : b + block]
+            dx = np.sqrt(np.maximum(
+                ((xa[:, None, :] - xb[None, :, :]) ** 2).sum(-1), 1e-30))
+            dt = np.sqrt(np.maximum(
+                ((ta[:, None, :] - tb[None, :, :]) ** 2).sum(-1), 0.0))
+            ratio = dt / dx
+            if a == b:
+                iu = np.triu_indices(xa.shape[0], k=1)
+                total += ratio[iu].sum()
+                count += iu[0].size
+            else:
+                total += ratio.sum()
+                count += ratio.size
+    return total / max(count, 1)
