@@ -28,7 +28,8 @@ fails. Phases:
    ``{"ok": true, ...}`` line.
 
 The launch counts are each dispatcher's own ``LAUNCHES``, set to 0 just
-before a main path and read just after it.
+before a main path (path A: the timed ``drop``, ``transform`` and
+``nearest_neighbors``) and read just after it.
 """
 
 from __future__ import annotations
@@ -60,12 +61,10 @@ TIE_TOL = 1e-4
 # ||q||^2 + ||x||^2, the size of the terms the d2 expansion cancels
 KNN_GAP_ULPS = 64
 
-# (HBM bytes/s, float32 FLOP/s outside the tensor cores), NVIDIA data sheets
-PEAKS = {
-    "H100 SXM": (3.35e12, 67e12),
-    "H100 NVL": (3.9e12, 60e12),
-    "H100 PCIe": (2.0e12, 51e12),
-}
+# the card the bounds are for, as torch.cuda.get_device_name names it, and its
+# HBM bytes/s and float32 FLOP/s outside the tensor cores (H100 SXM data sheet)
+CARD = "NVIDIA H100 80GB HBM3"
+PEAKS = ("H100 SXM", 3.35e12, 67e12)
 
 
 class CheckFailed(Exception):
@@ -77,16 +76,9 @@ def check(ok: bool, what: str) -> None:
         raise CheckFailed(what)
 
 
-def peaks_for(name: str) -> tuple[str, float, float]:
-    for key in ("NVL", "PCIe"):
-        if key in name:
-            return (f"H100 {key}", *PEAKS[f"H100 {key}"])
-    return ("H100 SXM", *PEAKS["H100 SXM"])
-
-
-def bound_ms(nbytes: float, flops: float, peaks) -> tuple[float, str]:
-    t_bytes = nbytes / peaks[1] * 1e3
-    t_ops = flops / peaks[2] * 1e3
+def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    t_bytes = nbytes / PEAKS[1] * 1e3
+    t_ops = flops / PEAKS[2] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -131,10 +123,10 @@ def run(torch) -> int:
     ).stdout.strip().splitlines()[0]
     print(card)
     name = torch.cuda.get_device_name(0)
-    peaks = peaks_for(name)
+    check(name == CARD, f"the bounds hold the peak rates of {CARD} ({PEAKS[0]}), not of {name}")
     print(f"[0] device {name}, capability {torch.cuda.get_device_capability(0)}, "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"peaks from the {peaks[0]} data sheet: {peaks[1] / 1e12} TB/s, {peaks[2] / 1e12} TFLOP/s f32")
+          f"peaks from the {PEAKS[0]} data sheet: {PEAKS[1] / 1e12} TB/s, {PEAKS[2] / 1e12} TFLOP/s f32")
     build_s = _build.build_all()
     print(f"[0] kernel build: {build_s:.2f} s (0 = already built)")
     for stem, log in sorted(_build.BUILD_LOG.items()):
@@ -363,10 +355,10 @@ def run(torch) -> int:
     print(f"[2] path A data ecg_like(8000, 1024): {time.perf_counter() - t0:.1f} s")
     fixed = DropConfig(target_tlb=TARGET_TLB, min_iterations=99, seed=SEED)
 
-    reset_counts()
     t0 = time.perf_counter()
     gpu = drop(xa, fixed, device="cuda")
     fixed_gpu_s = time.perf_counter() - t0
+    reset_counts()
     t0 = time.perf_counter()
     timed = drop(xa, DropConfig(target_tlb=TARGET_TLB, seed=SEED), device="cuda")
     timed_s = time.perf_counter() - t0
@@ -490,7 +482,7 @@ def run(torch) -> int:
     kern = sync_ms(lambda: mm_ops.matmul(a, b))
     plain = sync_ms(lambda: matmul_ref(a, b))
     lib = sync_ms(lambda: torch.matmul(a, b))
-    bms, bby = bound_ms(4.0 * (m * k + k * n + m * n), 2.0 * m * n * k, peaks)
+    bms, bby = bound_ms(4.0 * (m * k + k * n + m * n), 2.0 * m * n * k)
     out.append(dict(name="matmul", route="cuda", source="src/repro_torch/kernels/csrc/matmul.cu",
                     replaces="src/repro/kernels/matmul/matmul.py:41",
                     shape=f"({m},{k})@({k},{n}) a.stride={tuple(a.stride())}",
@@ -506,7 +498,7 @@ def run(torch) -> int:
     kern = sync_ms(lambda: tlb_ops.pairwise_tlb(xi, xj, v))
     plain = sync_ms(lambda: pairwise_tlb_ref(xi, xj, v))
     bms, bby = bound_ms(4.0 * (2 * p * d + d * kdim + p * kdim),
-                        2.0 * p * d * kdim + 3.0 * p * d + 4.0 * p * kdim, peaks)
+                        2.0 * p * d * kdim + 3.0 * p * d + 4.0 * p * kdim)
     out.append(dict(name="pairwise_tlb", route="cuda", source="src/repro_torch/kernels/csrc/pairwise_tlb.cu",
                     replaces="src/repro/kernels/pairwise_tlb/pairwise_tlb.py:50",
                     shape=f"P={p} d={d} K={kdim}", calls_on_path_a=len(shapes_a["pairwise_tlb"]),
@@ -520,7 +512,7 @@ def run(torch) -> int:
     kern = sync_ms(lambda: knn_ops.pairwise_knn_reduce(xk[:mq], xk, mk))
     plain = sync_ms(lambda: pairwise_knn_ref(xk[:mq], xk, mk), iters=5)
     bms, bby = bound_ms(4.0 * (mq * d + mk * d) + 8.0 * mq,
-                        2.0 * mq * mk * d + 4.0 * mq * mk + 2.0 * (mq + mk) * d, peaks)
+                        2.0 * mq * mk * d + 4.0 * mq * mk + 2.0 * (mq + mk) * d)
     out.append(dict(name="pairwise_knn", route="cuda", source="src/repro_torch/kernels/csrc/pairwise_knn.cu",
                     replaces="src/repro/kernels/pairwise_reduce/pairwise_reduce.py:213",
                     shape=f"mq={mq} mk={mk} d={d}", calls_on_path_a=len(shapes_a["pairwise_knn"]),

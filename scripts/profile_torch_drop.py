@@ -1,10 +1,11 @@
 """Where DROP's runtime R goes in the PyTorch port, on one CUDA GPU.
 
-    PYTHONPATH=src python scripts/profile_torch_drop.py [--rows 8000] [--dim 1024]
+    python3 scripts/profile_torch_drop.py
 
-Runs ``drop`` on ``ecg_like(rows, dim, seed=0)`` at target 0.98 once to
-warm up (kernel build, solver handles), then once more under
-``torch.profiler`` with CPU and CUDA activities, and prints R, the wall
+Runs ``drop`` on ``ecg_like(8000, 1024, seed=0)``, the data of
+``chip_smoke.py``'s path A, at target 0.98 once to warm up (kernel build,
+solver handles), then once more under ``torch.profiler`` with CPU and CUDA
+activities, and prints R, the wall
 time, the device's busy time (the union of all kernel and copy intervals)
 and busy share of the wall time, and the device time by kernel name,
 largest first. It exits non-zero without a GPU or when the profiler
@@ -13,11 +14,12 @@ records no device activity. Needs torch, numpy and scipy; not JAX.
 
 from __future__ import annotations
 
-import argparse
 import sys
 import time
 from collections import defaultdict
 from pathlib import Path
+
+ROWS, DIM = 8000, 1024
 
 
 def busy_intervals(events, device_type):
@@ -36,11 +38,6 @@ def busy_intervals(events, device_type):
 
 
 def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--rows", type=int, default=8000)
-    parser.add_argument("--dim", type=int, default=1024)
-    args = parser.parse_args()
-
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -51,7 +48,7 @@ def main() -> int:
     from repro_torch.core import DropConfig, drop
     from repro_torch.data import ecg_like
 
-    x, _ = ecg_like(args.rows, args.dim, seed=0)
+    x, _ = ecg_like(ROWS, DIM, seed=0)
     cfg = DropConfig(target_tlb=0.98, seed=0)
     drop(x, cfg, device="cuda")  # warm-up
     torch.cuda.synchronize()
@@ -73,7 +70,7 @@ def main() -> int:
             by_name[e.name][0] += 1
             by_name[e.name][1] += e.time_range.end - e.time_range.start
     print(torch.cuda.get_device_name(0))
-    print(f"ecg_like({args.rows}, {args.dim}): {len(res.iterations)} iterations, k {res.k}, "
+    print(f"ecg_like({ROWS}, {DIM}): {len(res.iterations)} iterations, k {res.k}, "
           f"R {res.runtime_s * 1e3:.2f} ms, wall {wall * 1e3:.2f} ms (profiler on)")
     print(f"device busy {busy_us / 1e3:.3f} ms = {busy_us / 1e3 / (wall * 1e3):.1%} of the wall time "
           f"({len(merged)} busy intervals)")
