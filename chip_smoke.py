@@ -10,9 +10,11 @@ fails. Phases:
 
 0. The card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and the build of every kernel from ``src/repro_torch/kernels/csrc``.
-1. Each kernel (K1 matmul, K2 pairwise TLB, K3 1-NN) against its plain
-   PyTorch version on the card, on the JAX package's sweep shapes (ragged
-   and degenerate ones included, bf16 for K1) and on the main path's shapes.
+1. Each kernel (K1 matmul, K2 pairwise TLB, K3 1-NN, K4 DBSCAN eps-ball,
+   K5 Gaussian KDE) against its plain PyTorch version on the card, on the
+   JAX package's sweep shapes (ragged and degenerate ones included, bf16
+   for K1, ragged widths around the 32-bit word for K4/K5) and on the main
+   paths' shapes.
 2. Main path A, ``ecg_like(8000, 1024)`` (StarLightCurves scale): ``drop``
    with the full schedule on the card, a timed ``drop`` that Eq. 2 stops,
    ``transform`` and ``nearest_neighbors`` on the card; then the full
@@ -21,15 +23,25 @@ fails. Phases:
    on the card against the CPU.
 3. Main path B, ``mnist_like(70000, 28)`` (MNIST's rows and width): ``drop``
    and 1-NN on the card, the basis' TLB on 2,000 fresh pairs, and 1-NN on
-   512 random rows against float64 brute force.
-4. Each kernel timed at the largest shape path A gave it, beside its plain
-   version, its bound and (K1) ``torch.matmul``; then one JSON line listing
-   the kernels with their launches on the main path, and the final
-   ``{"ok": true, ...}`` line.
+   512 random rows against float64 brute force; then one full launch each
+   of K4 and K5 on the 70,000 x k reduced data, 512 random query rows held
+   against the plain version.
+4. Main path C, the paper's §4.4 workload on path A's data:
+   ``WorkloadOptimizer`` over PCA (DROP), FFT, PAA, DWT and JL for the
+   knn, dbscan and kde downstreams, every method executed on the card.
+   Per method: the basis' TLB on 2,000 fresh pairs, and the baselines' k
+   against the same host numpy code's CPU run. Then DBSCAN and KDE on the
+   PCA-reduced data at a working eps and bandwidth, card against the CPU.
+5. Each kernel timed beside its plain version, its bound and (K1)
+   ``torch.matmul``: K1-K3 at the largest shape path A gave them, K4 and
+   K5 at path C's 8000 x 8000 at DROP's k and at path B's full shape; then one JSON line listing the kernels with their
+   launches on each main path, and the final ``{"ok": true, ...}`` line.
 
 The launch counts are each dispatcher's own ``LAUNCHES``, set to 0 just
 before a main path (path A: the timed ``drop``, ``transform`` and
-``nearest_neighbors``) and read just after it.
+``nearest_neighbors``; path B: ``drop``, ``transform`` and
+``nearest_neighbors``; path C: the three ``optimize`` calls) and read just
+after it.
 """
 
 from __future__ import annotations
@@ -61,10 +73,23 @@ TIE_TOL = 1e-4
 # ||q||^2 + ||x||^2, the size of the terms the d2 expansion cancels
 KNN_GAP_ULPS = 64
 
+# K4 flags a pair whose float64 d2 lies within this many float32 epsilons
+# of ||q||^2 + ||x||^2 of eps^2: it may fall either side on two devices
+D2_ULPS = 64
+# K5 densities: float32 sums in another order (rtol), plus the d2
+# expansion's rounding bound (D2_ULPS) times inv_two_h2, relative: the two
+# sides round each d2 differently before the exponential
+KDE_RTOL = 2e-5
+
 # the card the bounds are for, as torch.cuda.get_device_name names it, and its
 # HBM bytes/s and float32 FLOP/s outside the tensor cores (H100 SXM data sheet)
 CARD = "NVIDIA H100 80GB HBM3"
 PEAKS = ("H100 SXM", 3.35e12, 67e12)
+# exponentials per second on the special function units: 16 exp2 results
+# per clock per SM (CUDA C++ Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0) x 132 SMs x 1.98 GHz, the boost clock
+# at which 132 SMs x 128 FP32 lanes x 2 give the data sheet's 67 TFLOP/s
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
 
 
 class CheckFailed(Exception):
@@ -76,10 +101,25 @@ def check(ok: bool, what: str) -> None:
         raise CheckFailed(what)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float, exps: float = 0.0) -> tuple[float, str]:
+    """The least time for the work: bytes over HBM bandwidth, or float32
+    operations over the FP32 rate, or exponentials over the SFU rate."""
     t_bytes = nbytes / PEAKS[1] * 1e3
-    t_ops = flops / PEAKS[2] * 1e3
+    t_ops = max(flops / PEAKS[2], exps / SFU_EXP_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def eps_for(x, quantile: float = 0.005, probe: int = 512, seed: int = 0) -> tuple[float, float]:
+    """An eps giving about ``quantile`` of pairs as neighbors, and the median
+    distance, from sampled rows (``benchmarks/bench_pairwise_analytics.py``
+    ``_eps_for``'s rule: neighbor sets small but non-empty)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    s = x[rng.integers(0, x.shape[0], size=min(probe, x.shape[0]))]
+    d2 = (s * s).sum(1)[:, None] + (s * s).sum(1)[None, :] - 2.0 * s @ s.T
+    vals = np.sqrt(np.maximum(d2[np.triu_indices(s.shape[0], 1)], 0.0))
+    return float(np.quantile(vals, quantile)), float(np.median(vals))
 
 
 def main() -> int:
@@ -101,16 +141,22 @@ def run(torch) -> int:
 
     import repro_torch.analytics.knn as knn_mod
     import repro_torch.core.tlb as tlb_mod
-    from repro_torch.core import DropConfig, PcaDropReducer, drop
+    from repro_torch.analytics import dbscan, gaussian_kde, pairwise_dbscan
+    from repro_torch.core import DropConfig, PcaDropReducer, drop, reduce
     from repro_torch.core.tlb import prefix_tlb_table, sample_pairs
     from repro_torch.data import ecg_like, mnist_like
     from repro_torch.kernels import _build
     from repro_torch.kernels.matmul import ops as mm_ops
     from repro_torch.kernels.matmul.ref import matmul_ref
     from repro_torch.kernels.pairwise_reduce import ops as knn_ops
-    from repro_torch.kernels.pairwise_reduce.ref import pairwise_knn_ref
+    from repro_torch.kernels.pairwise_reduce.ref import (
+        pairwise_dbscan_ref,
+        pairwise_kde_ref,
+        pairwise_knn_ref,
+    )
     from repro_torch.kernels.pairwise_tlb import ops as tlb_ops
     from repro_torch.kernels.pairwise_tlb.ref import pairwise_tlb_ref
+    from repro_torch.pipeline import WorkloadOptimizer
     from repro_torch.utils import resolve_device
 
     t_start = time.perf_counter()
@@ -153,7 +199,8 @@ def run(torch) -> int:
         return start.elapsed_time(end) / iters
 
     # ------------------------------------------------------ 1. kernel checks
-    errs = {"matmul": 0.0, "matmul_bf16": 0.0, "pairwise_tlb": 0.0, "pairwise_knn": 0.0}
+    errs = {"matmul": 0.0, "matmul_bf16": 0.0, "pairwise_tlb": 0.0, "pairwise_knn": 0.0,
+            "pairwise_dbscan": 0.0, "pairwise_kde": 0.0}
 
     def check_matmul(a, b, label):
         got = mm_ops.matmul(a, b)
@@ -272,9 +319,86 @@ def run(torch) -> int:
     print(f"[1] K3 pairwise_knn: {len(knn_cases) + 2} cases agree with the plain version "
           f"({near} near-tie rows skipped; max |d2 err| {errs['pairwise_knn']:.3e})")
 
+    def near_eps(xq, x, m, eps2):
+        """Pairs (query, column < m) whose float64 d2 lies within the d2
+        expansion's float32 rounding of eps2: either device may flag them."""
+        q64, x64 = xq.double(), x[:m].double()
+        sq_q, sq_x = (q64 * q64).sum(1), (x64 * x64).sum(1)
+        d2 = sq_q[:, None] + sq_x[None, :] - 2.0 * q64 @ x64.T
+        return (d2 - float(eps2)).abs() <= D2_ULPS * EPS32 * (sq_q[:, None] + sq_x[None, :])
+
+    def bits(packed):
+        shifts = torch.arange(32, dtype=torch.int32, device=packed.device)
+        return ((packed.view(torch.int32)[:, :, None] >> shifts) & 1).reshape(packed.shape[0], -1)
+
+    def compare_dbscan(got_c, got_p, want_c, want_p, near, mk, label):
+        """K4 against the plain version: equal words off the flagged pairs,
+        no bit at or past column m (tail words included), counts that are
+        the words' popcounts and within the row's flagged pairs of the
+        plain counts. Returns (flagged pairs, bits that differ)."""
+        check(got_p.shape == want_p.shape == (got_c.shape[0], -(-mk // 32)),
+              f"K4 {label}: packed shape {tuple(got_p.shape)}")
+        gb, wb = bits(got_p), bits(want_p)
+        m = near.shape[1]
+        check(not bool(gb[:, m:].any()), f"K4 {label}: bits set at or past column m")
+        differ = gb[:, :m] != wb[:, :m]
+        off = int((differ & ~near).sum())
+        check(off == 0, f"K4 {label}: {off} neighbor bits differ off the eps boundary")
+        check(bool((got_c == gb.sum(1)).all()), f"K4 {label}: counts are not the words' popcounts")
+        dc = (got_c.long() - want_c.long()).abs()
+        check(bool((dc <= near.sum(1)).all()), f"K4 {label}: counts differ beyond the flagged pairs")
+        errs["pairwise_dbscan"] = max(errs["pairwise_dbscan"], float(dc.max()) if dc.numel() else 0.0)
+        return int(near.sum()), int(differ.sum())
+
+    def compare_kde(got_s, got_c, want_s, xq, x, m, inv, label):
+        """K5 against the plain version, per row: |got - want| <= want *
+        (KDE_RTOL + inv * the largest d2 rounding bound of the row)."""
+        got, want = got_s.double() + got_c.double(), want_s.double()
+        err = (got - want).abs()
+        if m > 0:
+            sq_q = (xq.double() ** 2).sum(1)
+            bmax = D2_ULPS * EPS32 * (sq_q + float((x[:m].double() ** 2).sum(1).max()))
+            tol = want * (KDE_RTOL + float(inv) * bmax)
+        else:
+            tol = torch.zeros_like(want)
+        check(bool((err <= tol).all()), f"K5 {label}: max |err| {float(err.max()):.3e} beyond tolerance")
+        errs["pairwise_kde"] = max(errs["pairwise_kde"], float(err.max()) if err.numel() else 0.0)
+        return float((err / want.clamp_min(1e-300)).max()) if err.numel() else 0.0
+
+    # the reference sweep (eps 1.5, inv_two_h2 0.5), ragged mk around the
+    # 32-bit word, columns past m, separate queries (K5), a shape whose few
+    # row blocks split the column tiles, and path C's 8000 x 8000 at DROP's k
+    pr_cases = [(32, 32, 8, 32), (48, 80, 16, 80), (33, 61, 7, 61), (1, 16, 4, 16), (3, 3, 2, 3),
+                (31, 31, 5, 31), (33, 33, 5, 33), (63, 63, 6, 63), (97, 97, 3, 97),
+                (40, 70, 4, 50), (100, 5000, 16, 5000), (8000, 8000, 42, 8000)]
+    flagged = 0
+    worst_rel = 0.0
+    for mq, mk, d, m in pr_cases:
+        x = normal(mk, d)
+        eps2 = np.float32(2.25 if d < 16 else 1.4 * d)  # d2 ~ 2d: a few percent are neighbors
+        inv = np.float32(0.5 if d < 16 else 1.0 / (2.0 * d))
+        label = f"{mq}x{mk}x{d} m={m}"
+        xq = x[:mq].contiguous()
+        got_c, got_p = knn_ops.pairwise_dbscan_reduce(xq, x, m, eps2)
+        want_c, want_p = pairwise_dbscan_ref(xq, x, m, eps2)
+        torch.cuda.synchronize()
+        flagged += compare_dbscan(got_c, got_p, want_c, want_p, near_eps(xq, x, m, eps2), mk, label)[0]
+        if mq == 97:
+            xq = normal(mq, d)  # queries that are not dataset rows
+        got_s, got_k = knn_ops.pairwise_kde_reduce(xq, x, m, inv)
+        want_s, _ = pairwise_kde_ref(xq, x, m, inv)
+        torch.cuda.synchronize()
+        worst_rel = max(worst_rel, compare_kde(got_s, got_k, want_s, xq, x, m, inv, label))
+    print(f"[1] K4 pairwise_dbscan: {len(pr_cases)} cases agree with the plain version "
+          f"({flagged} pairs within rounding of eps2; max |count err| {errs['pairwise_dbscan']:.0f})")
+    print(f"[1] K5 pairwise_kde: {len(pr_cases)} cases agree with the plain version "
+          f"(max |err| {errs['pairwise_kde']:.3e}, max relative {worst_rel:.3e}; "
+          f"tolerance rtol {KDE_RTOL} + inv_two_h2 x the d2 rounding bound)")
+
     # record every kernel call's operands on the main path, to time the
     # kernels there afterwards; the dispatchers are wrapped, not changed
-    calls = {"matmul": [], "pairwise_tlb": [], "pairwise_knn": []}
+    calls = {"matmul": [], "pairwise_tlb": [], "pairwise_knn": [], "pairwise_dbscan": [],
+             "pairwise_kde": []}
 
     def recording(module, attr, log):
         inner = getattr(module, attr)
@@ -291,17 +415,20 @@ def run(torch) -> int:
         recording(mm_ops, "matmul", calls["matmul"]),
         recording(tlb_ops, "pairwise_tlb", calls["pairwise_tlb"]),
         recording(knn_ops, "pairwise_knn_reduce", calls["pairwise_knn"]),
+        recording(knn_ops, "pairwise_dbscan_reduce", calls["pairwise_dbscan"]),
+        recording(knn_ops, "pairwise_kde_reduce", calls["pairwise_kde"]),
     ]
-    counted = (("matmul", mm_ops), ("pairwise_tlb", tlb_ops), ("pairwise_knn", knn_ops))
 
     def reset_counts():
-        for _, mod in counted:
-            mod.LAUNCHES = 0
+        mm_ops.LAUNCHES = 0
+        tlb_ops.LAUNCHES = 0
+        for kname in knn_ops.LAUNCHES:
+            knn_ops.LAUNCHES[kname] = 0
         for log in calls.values():
             log.clear()
 
     def read_counts():
-        return {name_: mod.LAUNCHES for name_, mod in counted}
+        return {"matmul": mm_ops.LAUNCHES, "pairwise_tlb": tlb_ops.LAUNCHES, **knn_ops.LAUNCHES}
 
     def lockstep(x, cfg):
         """A card and a CPU reducer stepped side by side. After each step the
@@ -457,11 +584,127 @@ def run(torch) -> int:
     print(f"[3] launches on path B: {launches_b}")
     del xb_dev
 
+    def event_ms(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out_ = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out_, start.elapsed_time(end)
+
+    # K4 and K5 at scale: one full launch each on the 70,000 x k reduced data
+    eps_b, h_b = eps_for(xtb)
+    eps2_b = np.float32(eps_b * eps_b)
+    inv_b = np.float32(1.0 / (2.0 * h_b * h_b))
+    xtb_dev = torch.from_numpy(np.ascontiguousarray(xtb)).to(dev)
+    mb = xtb_dev.shape[0]
+    (counts_b, packed_b), dbscan_b_ms = event_ms(
+        lambda: knn_ops.pairwise_dbscan_reduce(xtb_dev, xtb_dev, mb, eps2_b))
+    (sums_b, comps_b), kde_b_ms = event_ms(
+        lambda: knn_ops.pairwise_kde_reduce(xtb_dev, xtb_dev, mb, inv_b))
+    rows_t = torch.from_numpy(rows.astype(np.int64)).to(dev)
+    xq_b = xtb_dev[rows_t]
+    want_c, want_p = pairwise_dbscan_ref(xq_b, xtb_dev, mb, eps2_b)
+    # uint32 tensors take few torch operators on the card: index the bits as int32
+    got_pb = packed_b.view(torch.int32)[rows_t].view(torch.uint32)
+    near_b, differ_b = compare_dbscan(counts_b[rows_t], got_pb, want_c, want_p,
+                                      near_eps(xq_b, xtb_dev, mb, eps2_b), mb, "path B")
+    print(f"[3] K4 on {mb} x {res_b.k} (eps {eps_b:.4f}, the 0.005 quantile of sampled distances): "
+          f"{dbscan_b_ms:.3f} ms one launch, packed output {packed_b.numel() * 4 / 1e6:.1f} MB, "
+          f"{float(counts_b.double().sum()) / mb / mb:.4%} of pairs neighbors; 512 random rows vs the "
+          f"plain version: {near_b} pairs within rounding of eps2, {differ_b} bits differ (all on them)")
+    want_s, _ = pairwise_kde_ref(xq_b, xtb_dev, mb, inv_b)
+    rel_b = compare_kde(sums_b[rows_t], comps_b[rows_t], want_s, xq_b, xtb_dev, mb, inv_b, "path B")
+    print(f"[3] K5 on {mb} x {res_b.k} (bandwidth {h_b:.4f}, the median sampled distance): "
+          f"{kde_b_ms:.3f} ms one launch; 512 random rows vs the plain version: max relative "
+          f"difference {rel_b:.3e}")
+    del packed_b, got_pb, want_p
+
+    # ------------------------------------------------------- 4. main path C
+    methods = ("pca", "fft", "paa", "dwt", "jl")
+    cfg_c = DropConfig(target_tlb=TARGET_TLB, seed=SEED)
+    reset_counts()
+    t0 = time.perf_counter()
+    reports = {
+        ds: WorkloadOptimizer(methods=methods, cfg=cfg_c, device="cuda").optimize(xa, ds, execute="all")
+        for ds in ("knn", "dbscan", "kde")
+    }
+    opt_s = time.perf_counter() - t0
+    launches_c = read_counts()
+    shapes_c = {k_: list(v_) for k_, v_ in calls.items()}
+    for ds, rep in reports.items():
+        print("[4] WorkloadOptimizer on ecg_like(8000, 1024), execute='all':")
+        for line in rep.summary().splitlines():
+            print(f"[4]   {line}")
+    print(f"[4] three optimize calls: {opt_s:.2f} s wall; launches on path C: {launches_c}")
+
+    pairs_c = sample_pairs(xa.shape[0], 2000, np.random.default_rng(54321))
+    diff_c = xa[pairs_c[:, 0]].astype(np.float64) - xa[pairs_c[:, 1]].astype(np.float64)
+    norm_c = np.linalg.norm(diff_c, axis=1)
+    cpu_fits = {m_: reduce(xa, m_, cfg_c, device="cpu") for m_ in methods if m_ != "pca"}
+    for ds, rep in reports.items():
+        for m_, o in rep.outcomes.items():
+            res = o.result
+            fresh = float(np.mean(np.linalg.norm(diff_c @ res.v.astype(np.float64), axis=1) / norm_c))
+            line = (f"[4]   {ds:6s} {m_:4s} k {res.k:4d} satisfied {res.satisfied} "
+                    f"TLB {res.tlb_estimate:.4f}, on 2,000 fresh pairs {fresh:.4f}")
+            if m_ in cpu_fits:
+                cpu = cpu_fits[m_]
+                line += f"; CPU run k {cpu.k} TLB {cpu.tlb_estimate:.4f}"
+                check((res.k, res.tlb_estimate, res.satisfied) == (cpu.k, cpu.tlb_estimate, cpu.satisfied),
+                      f"path C {ds} {m_}: the card's fit differs from the CPU run of the same host code")
+            print(line)
+            check(not res.satisfied or fresh >= TARGET_TLB - 0.01,
+                  f"path C {ds} {m_}: fresh-pair TLB {fresh:.4f} < {TARGET_TLB - 0.01}")
+
+    # DBSCAN and KDE on the PCA-reduced data, at a working eps and bandwidth
+    xt_c = reports["dbscan"].outcomes["pca"].result.transform(xa)
+    eps_c, h_c = eps_for(xt_c)
+    t0 = time.perf_counter()
+    lab_card = dbscan(xt_c, eps_c, 5, device="cuda")
+    dbscan_c_s = time.perf_counter() - t0
+    lab_cpu = dbscan(xt_c, eps_c, 5, device="cpu")
+    c_card, p_card = pairwise_dbscan(xt_c, eps_c, device="cuda")
+    c_cpu, p_cpu = pairwise_dbscan(xt_c, eps_c, device="cpu")
+    xt_c_dev = torch.from_numpy(np.ascontiguousarray(xt_c)).to(dev)
+    mc = xt_c.shape[0]
+    eps2_c = np.float32(eps_c * eps_c)
+    def to_dev(a):
+        if a.dtype == np.uint32:
+            return torch.from_numpy(a.view(np.int32)).to(dev).view(torch.uint32)
+        return torch.from_numpy(a).to(dev)
+
+    near_c, differ_c = compare_dbscan(to_dev(c_card), to_dev(p_card), to_dev(c_cpu), to_dev(p_cpu),
+                                      near_eps(xt_c_dev, xt_c_dev, mc, eps2_c), mc, "path C")
+    n_clusters = len(set(lab_card.tolist()) - {-1})
+    print(f"[4] DBSCAN on the PCA-reduced {mc} x {xt_c.shape[1]} (eps {eps_c:.4f}, the 0.005 quantile of "
+          f"sampled distances, min_samples 5) on the card: {dbscan_c_s * 1e3:.1f} ms host clock; "
+          f"{n_clusters} clusters, {int((lab_card == -1).sum())} noise points; {near_c} pairs within "
+          f"rounding of eps2, {differ_c} neighbor bits differ card vs CPU (all on such pairs); labels "
+          f"card vs CPU: {int((lab_card != lab_cpu).sum())} differ")
+    if differ_c == 0:
+        check(bool((lab_card == lab_cpu).all()), "path C: DBSCAN labels differ with identical neighbor bits")
+    else:
+        print(f"[4]   {differ_c} neighbor bits at the eps boundary fell on different sides on the card and "
+              "the CPU (near-tie): labels are not compared")
+    t0 = time.perf_counter()
+    dens_card = gaussian_kde(xt_c, bandwidth=h_c, device="cuda")
+    kde_c_s = time.perf_counter() - t0
+    dens_cpu = gaussian_kde(xt_c, bandwidth=h_c, device="cpu")
+    inv_c = np.float32(1.0 / (2.0 * h_c * h_c))
+    rel_c = compare_kde(to_dev(dens_card), torch.zeros(mc, device=dev), to_dev(dens_cpu),
+                        xt_c_dev, xt_c_dev, mc, inv_c, "path C")
+    print(f"[4] KDE on the PCA-reduced data (bandwidth {h_c:.4f}, the median sampled distance) on the "
+          f"card: {kde_c_s * 1e3:.2f} ms host clock; card vs CPU max relative difference {rel_c:.3e}")
+
     for kname in ("matmul", "pairwise_tlb", "pairwise_knn"):
         check(launches_a[kname] > 0, f"{kname} was not launched on main path A")
         check(launches_b[kname] > 0, f"{kname} was not launched on main path B")
+    for kname in launches_c:
+        check(launches_c[kname] > 0, f"{kname} was not launched on main path C")
 
-    # --------------------------------------- 4. kernels at the main path's shapes
+    # ------------------------------------- 5. kernels at the main paths' shapes
     for undo in restore:
         undo()
 
@@ -518,14 +761,66 @@ def run(torch) -> int:
                     shape=f"mq={mq} mk={mk} d={d}", calls_on_path_a=len(shapes_a["pairwise_knn"]),
                     max_abs_err=errs["pairwise_knn"], ms=kern, plain_ms=plain, bound_ms=bms,
                     bound_by=bby, library_ms=None))
+
+    def dbscan_bound(mq_, mk_, d_, m_):
+        words = -(-mk_ // 32)
+        return bound_ms(4.0 * (mq_ * d_ + mk_ * d_) + 4.0 * mq_ + 4.0 * mq_ * words,
+                        2.0 * mq_ * m_ * d_ + 3.0 * mq_ * m_ + 2.0 * (mq_ + mk_) * d_)
+
+    def kde_bound(mq_, mk_, d_, m_):
+        # per pair: the dot product, the d2 expression (3), max and scale
+        # (2) and the Neumaier add (4), beside one exponential
+        return bound_ms(4.0 * (mq_ * d_ + mk_ * d_) + 8.0 * mq_,
+                        2.0 * mq_ * m_ * d_ + 9.0 * mq_ * m_ + 2.0 * (mq_ + mk_) * d_, float(mq_ * m_))
+
+    def chunked(fn, rows_per=7000):
+        """The plain version over row blocks: its full distance matrix at
+        70,000 rows would take 19.6 GB."""
+        return lambda: [fn(xtb_dev[a_:a_ + rows_per]) for a_ in range(0, mb, rows_per)]
+
+    dc = xt_c_dev.shape[1]
+    db = xtb_dev.shape[1]
+    pr_kernels = (
+        ("pairwise_dbscan", "src/repro_torch/kernels/csrc/pairwise_dbscan.cu", 253, dbscan_bound,
+         lambda xq_, x_, m_: knn_ops.pairwise_dbscan_reduce(xq_, x_, m_, eps2_c),
+         lambda xq_, x_, m_: pairwise_dbscan_ref(xq_, x_, m_, eps2_c),
+         lambda xq_: knn_ops.pairwise_dbscan_reduce(xq_, xtb_dev, mb, eps2_b),
+         lambda xq_: pairwise_dbscan_ref(xq_, xtb_dev, mb, eps2_b)),
+        ("pairwise_kde", "src/repro_torch/kernels/csrc/pairwise_kde.cu", 297, kde_bound,
+         lambda xq_, x_, m_: knn_ops.pairwise_kde_reduce(xq_, x_, m_, inv_c),
+         lambda xq_, x_, m_: pairwise_kde_ref(xq_, x_, m_, inv_c),
+         lambda xq_: knn_ops.pairwise_kde_reduce(xq_, xtb_dev, mb, inv_b),
+         lambda xq_: pairwise_kde_ref(xq_, xtb_dev, mb, inv_b)),
+    )
+    for kname, source, line, bound, kern_c, plain_c, kern_b, plain_b in pr_kernels:
+        kern = sync_ms(lambda: kern_c(xt_c_dev, xt_c_dev, mc))
+        plain = sync_ms(lambda: plain_c(xt_c_dev, xt_c_dev, mc), iters=5)
+        bms, bby = bound(mc, mc, dc, mc)
+        kern_big = sync_ms(lambda: kern_b(xtb_dev), iters=5, warmup=1)
+        plain_big = sync_ms(chunked(plain_b), iters=2, warmup=1)
+        bms_big, bby_big = bound(mb, mb, db, mb)
+        out.append(dict(name=kname, route="cuda", source=source,
+                        replaces=f"src/repro/kernels/pairwise_reduce/pairwise_reduce.py:{line}",
+                        shape=f"mq={mc} mk={mc} d={dc} (path C, DROP's k)",
+                        calls_on_path_c=len(shapes_c[kname]), max_abs_err=errs[kname], ms=kern,
+                        plain_ms=plain, bound_ms=bms, bound_by=bby, library_ms=None,
+                        path_b_shape=f"mq={mb} mk={mb} d={db}", path_b_ms=kern_big,
+                        path_b_plain_ms=plain_big, path_b_bound_ms=bms_big, path_b_bound_by=bby_big))
     for entry in out:
-        entry["launches"] = launches_a[entry["name"]]
+        own = launches_c if entry["name"] in ("pairwise_dbscan", "pairwise_kde") else launches_a
+        entry["launches"] = own[entry["name"]]
+        entry["launches_path_a"] = launches_a[entry["name"]]
         entry["launches_path_b"] = launches_b[entry["name"]]
-        print(f"[4] {entry['name']} at {entry['shape']}: kernel {entry['ms']:.4f} ms, "
+        entry["launches_path_c"] = launches_c[entry["name"]]
+        print(f"[5] {entry['name']} at {entry['shape']}: kernel {entry['ms']:.4f} ms, "
               f"plain {entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}), "
               f"library {entry['library_ms'] if entry['library_ms'] is None else round(entry['library_ms'], 4)} ms")
+        if "path_b_ms" in entry:
+            print(f"[5] {entry['name']} at {entry['path_b_shape']} (path B): kernel {entry['path_b_ms']:.4f} ms, "
+                  f"plain {entry['path_b_plain_ms']:.4f} ms (10 row blocks of 7,000), bound "
+                  f"{entry['path_b_bound_ms']:.4f} ms ({entry['path_b_bound_by']})")
 
-    print(f"[4] total {time.perf_counter() - t_start:.1f} s")
+    print(f"[5] total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

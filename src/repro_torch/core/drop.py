@@ -46,6 +46,8 @@ class PcaDropReducer:
     """
 
     method = "pca"
+    cacheable = True
+    supports_update = False  # update() waits for the subspace tracker
 
     def __init__(
         self,

@@ -1,2 +1,3 @@
-"""K3: 1-NN pairwise reduction (replaces the kNN kernel of
-``repro/kernels/pairwise_reduce``; DBSCAN and KDE come in a later slice)."""
+"""K3 1-NN, K4 DBSCAN eps-ball and K5 Gaussian-KDE pairwise reductions
+(replace the kernels of ``repro/kernels/pairwise_reduce`` other than the
+split variants)."""

@@ -1,4 +1,5 @@
-"""Kernels K1-K3 of the PyTorch port.
+"""Kernels K1-K3 of the PyTorch port (K4 and K5:
+``tests/test_torch_pairwise_reduce.py``), and the dispatch rule of all five.
 
 On the CPU: each kernel's plain PyTorch version against the JAX package's
 Pallas kernel in interpret mode, on that package's own sweep shapes
@@ -127,8 +128,10 @@ def test_pairwise_knn_plain_tie_break_matches_pallas():
         lambda t: mm_ops.matmul(t, t),
         lambda t: tlb_ops.pairwise_tlb(t, t, t),
         lambda t: knn_ops.pairwise_knn_reduce(t, t, 4),
+        lambda t: knn_ops.pairwise_dbscan_reduce(t, t, 4, 1.0),
+        lambda t: knn_ops.pairwise_kde_reduce(t, t, 4, 0.5),
     ],
-    ids=["matmul", "pairwise_tlb", "pairwise_knn"],
+    ids=["matmul", "pairwise_tlb", "pairwise_knn", "pairwise_dbscan", "pairwise_kde"],
 )
 def test_dispatch_raises_off_cpu_and_cuda(call):
     """A tensor that is neither on the CPU nor on a CUDA device is refused,

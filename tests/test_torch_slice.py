@@ -21,8 +21,16 @@ from repro.analytics import nearest_neighbors as ref_nn
 from repro.core import DropConfig as RefConfig
 from repro.core import drop as ref_drop
 from repro.core.types import ReduceResult as RefResult
-from repro_torch.analytics import nearest_neighbors, pairwise_knn
-from repro_torch.core import DropConfig, PcaDropReducer, drop
+from repro_torch.analytics import (
+    dbscan,
+    dbscan_legacy,
+    gaussian_kde,
+    gaussian_kde_legacy,
+    nearest_neighbors,
+    pairwise_knn,
+)
+from repro_torch.core import DropConfig, PcaDropReducer, drop, reduce
+from repro_torch.pipeline import WorkloadOptimizer, run_downstream
 from repro_torch.data import sinusoid_mixture
 from repro_torch.interop import result_from_reference, result_to_arrays
 from test_torch_drop import TLB_TOL, replay_reference_omega
@@ -114,6 +122,13 @@ def test_default_device_raises_without_a_gpu(monkeypatch, data):
         lambda: PcaDropReducer(x),
         lambda: nearest_neighbors(x),
         lambda: pairwise_knn(x),
+        lambda: dbscan(x),
+        lambda: dbscan_legacy(x),
+        lambda: gaussian_kde(x),
+        lambda: gaussian_kde_legacy(x),
+        lambda: reduce(x, "pca"),
+        lambda: WorkloadOptimizer(),
+        lambda: run_downstream("kde", x),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
